@@ -1,8 +1,8 @@
-// orbtpu_io — native dataset runtime for the TPU SLAM framework.
+// orbtpu_io — native dataset runtime for the JAX SLAM framework.
 //
 // The reference's IO path is C++ (cv::imread in the example mains,
 // Examples/Monocular_LoadImages.cpp:151, RGBD_LoadImages.cpp); this is its
-// TPU-framework equivalent: a libpng-based grayscale/depth decoder, a TUM
+// This framework's equivalent: a libpng-based grayscale/depth decoder, a TUM
 // sequence parser (rgb.txt/depth.txt + nearest-timestamp association, the
 // associate.py convention), and a background prefetch pool that keeps the
 // host->device pipeline fed while the chip computes. Exposed as a C ABI for

@@ -25,6 +25,7 @@ from pathlib import Path
 
 
 def main(argv=None):
+    """Run the CLI; returns the (shut down) SLAMSystem for inspection."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--settings", help="master Setting.yaml (reference format)")
     ap.add_argument("--camera-yaml", help="camera/ORB settings yaml")
@@ -173,6 +174,7 @@ def main(argv=None):
             trajectory=_np.asarray(traj) if traj else None)
         print(f"interactive map view written to {args.html_view}")
     slam.shutdown()
+    return slam
 
 
 if __name__ == "__main__":

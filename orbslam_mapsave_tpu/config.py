@@ -166,7 +166,7 @@ class SystemConfig:
     udp: UDPConfig = field(default_factory=UDPConfig)
     aruco: ArucoConfig = field(default_factory=ArucoConfig)
 
-    # TPU-framework additions (no reference equivalent): static capacities
+    # Additions of this framework (no reference equivalent): static capacities
     # for the fixed-shape map state and mesh layout.
     max_keypoints: int = 2048  # padded per-frame feature capacity (>= n_features)
     max_keyframes: int = 512

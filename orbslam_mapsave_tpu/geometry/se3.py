@@ -1,6 +1,6 @@
 """SO3 / SE3 / Sim3 Lie-group operations as pure JAX functions.
 
-TPU-native replacement for the reference's g2o types
+Array-native replacement for the reference's g2o types
 (`Thirdparty/g2o/g2o/types/se3quat.h:41`, `sim3.h`,
 `types_six_dof_expmap.h:59`, `types_seven_dof_expmap.h:48`): instead of C++
 vertex classes with quaternion storage, poses are plain arrays — rotations as
@@ -172,7 +172,7 @@ def orthonormalize(T: jax.Array, iters: int = 3) -> jax.Array:
     """Project the rotation block of (...,4,4) back onto SO(3).
 
     Newton iteration for the polar factor, R <- R(3I - R^T R)/2 — pure
-    matmuls (MXU-friendly, no SVD custom call), quadratically convergent for
+    matmuls (no SVD custom call), quadratically convergent for
     near-orthogonal R. Needed because the tracker chains hundreds of f32
     4x4 products per frame (LM updates, velocity model); the resulting
     drift off SO(3) is INVISIBLE to reprojection error at first but is

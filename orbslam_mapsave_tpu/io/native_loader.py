@@ -2,48 +2,70 @@
 
 Gives the dataset path the same native treatment the reference's IO has
 (cv::imread + example-main loops are C++): libpng decode + background
-prefetch threads, so image decode overlaps device compute. Falls back to
-the pure-Python `TUMDataset` when the shared library is absent (the build
-is one `make -C native`).
+prefetch threads, so image decode overlaps device compute. The shared
+library is built from `native/Makefile` at first use (needs a C++ compiler
+and libpng); `available()` is False where that build cannot run, and
+callers fall back to the pure-Python `TUMDataset`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_LIB_PATHS = [
-    Path(__file__).resolve().parents[2] / "native" / "liborbtpu_io.so",
-]
+_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+_LIB_PATH = _NATIVE_DIR / "liborbtpu_io.so"
+
+
+def _build() -> bool:
+    """Run `make -C native` unless the library is newer than its source.
+
+    A lock file serialises concurrent first uses (test workers, tools), so no
+    process loads a half-written library."""
+    src = _NATIVE_DIR / "orbtpu_io.cpp"
+    if not src.is_file():
+        return False
+    with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (_LIB_PATH.is_file()
+                and _LIB_PATH.stat().st_mtime >= src.stat().st_mtime):
+            return True
+        try:
+            res = subprocess.run(["make", "-C", str(_NATIVE_DIR)],
+                                 capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        return res.returncode == 0 and _LIB_PATH.is_file()
 
 
 def _load_lib():
-    for p in _LIB_PATHS:
-        if p.is_file():
-            lib = ctypes.CDLL(str(p))
-            lib.orbtpu_open_sequence.restype = ctypes.c_void_p
-            lib.orbtpu_open_sequence.argtypes = [
-                ctypes.c_char_p, ctypes.c_double,
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-            ]
-            lib.orbtpu_sequence_shape.argtypes = [
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int),
-            ]
-            lib.orbtpu_prefetch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ]
-            lib.orbtpu_read_frame.restype = ctypes.c_int
-            lib.orbtpu_read_frame.argtypes = [
-                ctypes.c_void_p, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_double),
-            ]
-            lib.orbtpu_close.argtypes = [ctypes.c_void_p]
-            return lib
-    return None
+    if not _build():
+        return None
+    lib = ctypes.CDLL(str(_LIB_PATH))
+    lib.orbtpu_open_sequence.restype = ctypes.c_void_p
+    lib.orbtpu_open_sequence.argtypes = [
+        ctypes.c_char_p, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+    ]
+    lib.orbtpu_sequence_shape.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.orbtpu_prefetch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.orbtpu_read_frame.restype = ctypes.c_int
+    lib.orbtpu_read_frame.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.orbtpu_close.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 _LIB = None
@@ -103,8 +125,8 @@ class NativeTUMDataset:
             raise IOError(f"native read_frame({i}) failed: {rc}")
         # keep the pipeline ahead of the consumer
         self._lib.orbtpu_prefetch(self._h, i + 1, self.prefetch_depth)
-        # storage dtypes matching the Python loader: u8 gray + f16 depth —
-        # host->device transfer is the bottleneck on remote-attached TPU
+        # storage dtypes matching the Python loader: u8 gray + f16 depth
+        # (a quarter of the host->device bytes of an f32 pair)
         gray8 = gray.astype(np.uint8)
         return ts.value, gray8, (depth.astype(np.float16) if depth.any()
                                  else None)

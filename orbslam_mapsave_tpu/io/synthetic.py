@@ -197,8 +197,7 @@ def write_tum_sequence(out_dir: str | Path, K: np.ndarray, poses_wc: np.ndarray,
     error makes RGB-D odometry accumulate REAL drift that only loop closure
     can remove (used by the loop-closing e2e tests).
     """
-    from PIL import Image
-
+    from . import png
     from .trajectory import rot_to_quat_np
 
     out = Path(out_dir)
@@ -211,11 +210,11 @@ def write_tum_sequence(out_dir: str | Path, K: np.ndarray, poses_wc: np.ndarray,
         gray, depth = room.render(K, Twc, width, height)
         rgb_name = f"rgb/{t:.6f}.png"
         depth_name = f"depth/{t:.6f}.png"
-        Image.fromarray(gray.astype(np.uint8)).save(out / rgb_name)
+        png.write(out / rgb_name, gray.astype(np.uint8))
         if depth_scale_fn is not None:
             depth = depth * float(depth_scale_fn(i))
         d16 = np.clip(depth * depth_factor, 0, 65535).astype(np.uint16)
-        Image.fromarray(d16).save(out / depth_name)
+        png.write(out / depth_name, d16)
         rgb_lines.append(f"{t:.6f} {rgb_name}")
         depth_lines.append(f"{t:.6f} {depth_name}")
         q = rot_to_quat_np(Twc[:3, :3])
@@ -241,8 +240,7 @@ def write_stereo_sequence(out_dir: str | Path, K: np.ndarray,
     the camera x axis), times.txt, and a TUM-format groundtruth.txt of the
     left-camera poses for ATE tooling.
     """
-    from PIL import Image
-
+    from . import png
     from .trajectory import rot_to_quat_np
 
     out = Path(out_dir)
@@ -256,8 +254,8 @@ def write_stereo_sequence(out_dir: str | Path, K: np.ndarray,
         Twc_r[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array([baseline, 0, 0])
         gl, _ = room.render(K, Twc, width, height)
         gr, _ = room.render(K, Twc_r, width, height)
-        Image.fromarray(gl.astype(np.uint8)).save(out / f"image_0/{i:06d}.png")
-        Image.fromarray(gr.astype(np.uint8)).save(out / f"image_1/{i:06d}.png")
+        png.write(out / f"image_0/{i:06d}.png", gl.astype(np.uint8))
+        png.write(out / f"image_1/{i:06d}.png", gr.astype(np.uint8))
         times.append(f"{t:.6e}")
         q = rot_to_quat_np(Twc[:3, :3])
         tw = Twc[:3, 3]

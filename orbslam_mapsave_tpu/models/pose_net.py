@@ -1,11 +1,11 @@
-"""TPU-native human-pose backbone for the `OpDetector` pipeline.
+"""Accelerator-side human-pose backbone for the `OpDetector` pipeline.
 
 The reference's gait system runs the OpenPose BODY_25 CUDA backbone
 (`/root/reference/src/DetectHumanPose.cpp:100-220`: netInputSize 320x176,
 one person, keypoints consumed as (25,3) [x,y,conf]). That CUDA/Caffe
-backbone has no place in a TPU framework; this module provides the
-TPU-first equivalent: a fully-convolutional heatmap network in flax whose
-convolutions land on the MXU in bfloat16, decoded with a soft-argmax that
+backbone has no place in a JAX framework; this module provides the
+equivalent: a fully-convolutional heatmap network in flax whose
+convolutions run in bfloat16, decoded with a soft-argmax that
 stays on device. The contract downstream (`apps/human_pose.py:OpDetector`)
 is exactly the reference's: image -> (25,3) [x_px, y_px, confidence].
 
@@ -15,10 +15,10 @@ the net ships with a training loop against the synthetic skeleton renderer
 (exact-ground-truth synthetic data instead of undownloadable datasets).
 `tests/test_pose_net.py` trains it for a few hundred steps and asserts the
 joint localization error collapses, proving the full backbone->Kalman->
-3D-lift->mask chain is runnable end to end on TPU.
+3D-lift->mask chain is runnable end to end on the device.
 
 Architecture notes (hardware-first, not an OpenPose translation):
-- stride-4 encoder / heatmap head, channels in MXU-friendly multiples;
+- stride-4 encoder / heatmap head, channels in matmul-friendly multiples;
 - bfloat16 conv compute with float32 params and loss;
 - static shapes throughout, decode via global soft-argmax (no dynamic
   NMS — single-person regime, matching the fork which tracks one subject).

@@ -1,5 +1,5 @@
 """Synthetic stick-figure renderer: exact-ground-truth training/eval data
-for the TPU pose backbone (`models/pose_net.py`).
+for the pose backbone (`models/pose_net.py`).
 
 Mirrors the role OpenPose's COCO/BODY_25 training data plays for the
 reference (`/root/reference/src/DetectHumanPose.cpp` consumes a trained

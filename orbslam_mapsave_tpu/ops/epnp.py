@@ -5,7 +5,7 @@ al.) — 4 control points from PCA (`choose_control_points`,
 `PnPsolver.cc:378`), barycentric coordinates, the 2n x 12 M system reduced to
 M^T M (12x12) eigen-decomposition (`compute_pose:480`), beta cases N=1/2/3
 with Gauss-Newton refinement over the L_6x10 system (`gauss_newton:843`),
-closed-form R,t recovery (Horn). RANSAC re-designed TPU-first: ALL
+closed-form R,t recovery (Horn). RANSAC re-designed for the device: ALL
 hypotheses are solved as one batch (SURVEY.md §7.3) instead of the
 reference's sequential 5-iteration chunks, while keeping its acceptance
 gates (P=0.99, minInliers, maxIterations, per-scale chi2 thresholds,
@@ -229,7 +229,7 @@ def _gn_pose_polish(pose: jax.Array, pts3d: jax.Array, uv_norm: jax.Array,
     CvMat doubles throughout); the f32 `eigh(M^T M)` nullspace loses ~1e-1
     tangent accuracy on minimal 4-point sets. A couple of 6-DoF GN steps on
     the actual reprojection objective recovers it without any f64 op, which
-    keeps the kernel TPU-native."""
+    keeps the whole solve in f32."""
     def body(pose, _):
         pc = se3.transform_points(pose, pts3d)  # (B,n,3)
         z = jnp.where(jnp.abs(pc[..., 2]) < 1e-9, 1e-9, pc[..., 2])

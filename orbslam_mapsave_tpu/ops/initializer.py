@@ -141,7 +141,7 @@ def triangulate_dlt(P1: jax.Array, P2: jax.Array, uv1: jax.Array, uv2: jax.Array
     ], axis=-2)  # (...,4,4)
     # Inhomogeneous closed-form solve (w=1): 3x3 normal equations instead
     # of the 4x4 homogeneous SVD — batched tiny SVDs run as a serialized
-    # Jacobi while-loop on TPU (~100ms per call at N=2048). Near-infinite
+    # Jacobi while-loop. Near-infinite
     # points come out huge and are rejected by the same cheirality/
     # reprojection gates the reference applies after its SVD
     # (`Initializer.cc:640-768`, `LocalMapping.cc:339-407`).

@@ -1,10 +1,10 @@
 """Projection- and BoW-guided descriptor matching over whole frames.
 
-TPU-native rebuild of `ORBmatcher`'s search family (SURVEY.md §2.1): instead
+Vectorized rebuild of `ORBmatcher`'s search family (SURVEY.md §2.1): instead
 of per-feature grid walks (`Frame::GetFeaturesInArea`, `src/Frame.cc:445-498`)
 each search builds a dense (candidates x features) mask — window radius,
 octave range, rotation bins — over the full Hamming distance matrix computed
-on the MXU (`ops/hamming.py`). Conflict resolution (several candidates
+as one matmul (`ops/hamming.py`). Conflict resolution (several candidates
 claiming one feature) keeps the smallest distance, matching the last-writer
 overwrite semantics of the reference loops in expectation.
 
@@ -85,10 +85,9 @@ def _resolve_conflicts(best_feat: jax.Array, best_dist: jax.Array,
     or -1. Ties by distance then by candidate order.
 
     Scatter-free: the former `.at[safe_feat].min/.max` pair serialized
-    ~P scatter rows (~µs/row on this runtime — several ms at P=4096, and
-    this helper sits on EVERY matcher's tail, including the per-frame
-    local-map search and all Fuse passes). The segment-min over feature
-    bins runs as a masked (P,N) min-reduction instead — two fused VPU
+    ~P scatter rows (and this helper sits on EVERY matcher's tail,
+    including the per-frame local-map search and all Fuse passes). The segment-min over feature
+    bins runs as a masked (P,N) min-reduction instead — two fused element-wise
     passes over ~8M lanes.
     """
     P = best_feat.shape[0]
@@ -108,7 +107,7 @@ def _resolve_conflicts(best_feat: jax.Array, best_dist: jax.Array,
 
 
 def _pair_d2(uv: jax.Array, kp_xy: jax.Array) -> jax.Array:
-    """(P,N) squared pixel distances via the expanded form — one MXU
+    """(P,N) squared pixel distances via the expanded form — one
     matmul instead of materializing the (P,N,2) broadcast difference
     (halves the largest per-frame intermediate in every projection
     search). ~0.05 px^2 cancellation error at image-scale coords, far

@@ -1,4 +1,4 @@
-"""Batched ORB pyramid feature extraction — TPU-native redesign.
+"""Batched ORB pyramid feature extraction — vectorized redesign.
 
 Replaces the reference's `ORBextractor` (`src/ORBextractor.cc:1042-1108`,
 SURVEY.md §2.1) with whole-image vectorized stages instead of per-cell scalar
@@ -195,11 +195,11 @@ def build_pyramid(spec: ORBSpec, image: jax.Array) -> list[jax.Array]:
     prev_h, prev_w = spec.height, spec.width
     for lvl, ls in enumerate(spec.levels):
         if lvl > 0:
-            # Separable bilinear resize as two MXU matmuls: linear resize
+            # Separable bilinear resize as two matmuls: linear resize
             # is a linear operator, so its per-axis matrices are exactly
             # `jax.image.resize` applied to identity — traced on constants,
-            # they fold at compile time. The gather-based lowering of
-            # resize cost ~0.25 ms/level; the matmuls are ~0.1 GFLOP.
+            # they fold at compile time. The matmuls replace the
+            # gather-based lowering of resize (~0.1 GFLOP).
             # Rounded to integers: the reference's cv::resize writes an 8U
             # level (`src/ORBextractor.cc:1124`), so every downstream
             # consumer (FAST, IC, BRIEF) sees integer pixels — and integer
@@ -311,11 +311,11 @@ def detect_level(spec: ORBSpec, ls: LevelSpec, padded: jax.Array):
 def ic_moment_maps(padded: jax.Array) -> tuple[jax.Array, jax.Array]:
     """(m10, m01) of the circular IC patch centered at EVERY pixel.
 
-    TPU formulation of `IC_Angle` (`src/ORBextractor.cc:76-103`): a naive
+    Vectorized formulation of `IC_Angle` (`src/ORBextractor.cc:76-103`): a naive
     per-keypoint 31x31 patch gather costs C*961 random reads and a dense
     31x31 conv lowers terribly for 1-channel images; instead build row
     prefix sums once and reduce each circle row as a prefix-sum difference —
-    31 shifted element-wise passes over the level, all VPU work:
+    31 shifted element-wise passes over the level:
 
         sum_{u=-m..m} I(y+v, x+u)       = S1(y+v, x+m) - S1(y+v, x-m-1)
         sum_{u=-m..m} u * I(y+v, x+u)   = [Sx diff] - x * [S1 diff]
@@ -359,9 +359,9 @@ def ic_angles(padded: jax.Array, xy: jax.Array) -> jax.Array:
 def gaussian_blur7(padded: jax.Array) -> jax.Array:
     """Separable 7x7 sigma-2 Gaussian (descriptor image, ORBextractor.cc:1089).
 
-    Implemented as weighted shift-adds (pure VPU element-wise f32 math) —
-    a 1-channel XLA conv is MXU-hostile and, at HIGHEST precision, was
-    ~12ms/frame; the shifted adds are exact f32 FMAs and effectively free.
+    Implemented as weighted shift-adds (element-wise f32 math) — a
+    1-channel conv at HIGHEST precision is a poor fit for matrix units;
+    the shifted adds are exact f32 FMAs.
     Shifts clamp at the array edge (the affected band lies inside the
     EDGE=19 padding, outside any descriptor sample).
     """
@@ -389,10 +389,8 @@ _IC_DV = (np.arange(PATCH_SIZE) - HALF_PATCH)[:, None] * _IC_MASK
 def cut_patches_2ch(stack: jax.Array, xy: jax.Array) -> jax.Array:
     """(B,2,49,49) bf16 patches from an integer-valued (2,Hp,Wp) stack.
 
-    A vmapped `dynamic_slice` lowers to ~1.2 us/patch of latency-bound
-    gather (2.4 ms/frame at 2000 keypoints); this two-stage form costs
-    ~0.5 ms: a contiguous ROW gather (fast vector loads) followed by a
-    per-keypoint column one-hot contraction on the MXU. Exact because the
+    A two-stage form instead of a vmapped `dynamic_slice`: a contiguous
+    ROW gather followed by a per-keypoint column one-hot contraction. Exact because the
     stack holds integers <= 255 (bf16-representable)."""
     r = DESC_PAD + 3
     Wp = stack.shape[2]
@@ -503,14 +501,13 @@ def brief_descriptors(blurred: jax.Array, xy: jax.Array, angles_deg: jax.Array
     col=round(px*cos-py*sin)) relative to the keypoint; bit = I(p0) < I(p1);
     bits packed LSB-first into 32 bytes.
 
-    TPU formulation: XLA's scalar gather runs ~100M elem/s on TPU, so the
-    naive C*512 random reads cost ~6 ms/frame. Instead (a) cut a 43x43
-    patch per keypoint with vmapped dynamic_slice (contiguous rows, ~10x
-    the gather throughput), then (b) select the 512 rotated samples with
-    two one-hot contractions on the MXU. The row-select matmul runs in
-    bf16 with an hi/lo split (vals = hi @ oh + lo @ oh, f32 accumulation),
-    which reconstructs the f32 sample to ~2^-16 relative — far below any
-    t0<t1 comparison except exact ties.
+    Instead of C*512 random reads: (a) cut a 43x43 patch per keypoint
+    with vmapped dynamic_slice (contiguous rows), then (b) select the 512
+    rotated samples with two one-hot contractions. The row-select matmul
+    runs in bf16 with an hi/lo split (vals = hi @ oh + lo @ oh, f32
+    accumulation), which reconstructs the f32 sample to ~2^-16 relative —
+    far below any t0<t1 comparison except exact ties — and exactly for
+    samples with at most 16 significant bits.
     """
     c = xy.shape[0]
     W = 2 * DESC_PAD + 1  # 43
@@ -534,14 +531,21 @@ def brief_descriptors(blurred: jax.Array, xy: jax.Array, angles_deg: jax.Array
     iota = jnp.arange(W, dtype=jnp.int32)
     oh_r = (row_off[..., None] + DESC_PAD == iota)  # (C,512,43) bool
     oh_c = (col_off[..., None] + DESC_PAD == iota)
-    p_hi = patches.astype(jnp.bfloat16)
-    p_lo = (patches - p_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    # hi = the top 16 bits of each f32 (exactly a bf16), cut with integer
+    # ops: a float round trip f32 -> bf16 -> f32 is an identity that XLA
+    # may fold away where it allows excess precision (the GPU does), which
+    # would leave lo = 0 and the split inexact
+    hi = jax.lax.bitcast_convert_type(
+        jax.lax.bitcast_convert_type(patches, jnp.uint32)
+        & jnp.uint32(0xFFFF0000), jnp.float32)
+    p_hi = hi.astype(jnp.bfloat16)
+    p_lo = (patches - hi).astype(jnp.bfloat16)
     ohr_b = oh_r.astype(jnp.bfloat16)
     rows = jnp.einsum("crj,csr->csj", p_hi, ohr_b,
                       preferred_element_type=jnp.float32)
     rows = rows + jnp.einsum("crj,csr->csj", p_lo, ohr_b,
                              preferred_element_type=jnp.float32)
-    # column select: elementwise mask + reduce (exact f32 VPU math)
+    # column select: elementwise mask + reduce (exact f32 math)
     vals = jnp.sum(jnp.where(oh_c, rows, 0.0), -1)  # (C,512)
     t0, t1 = vals[:, :256], vals[:, 256:]
     bits = (t0 < t1).astype(jnp.uint8)  # (C,256)
@@ -586,7 +590,7 @@ def extract(spec: ORBSpec, image: jax.Array, mask: jax.Array | None = None
         # ONE 2-channel patch cut per BUDGETED keypoint feeds both the IC
         # angle (unblurred channel) and BRIEF (blurred channel) — the old
         # path computed whole-image moment maps for every PIXEL and cut a
-        # second patch set inside brief_descriptors (~1.5 ms/frame). The
+        # second patch set inside brief_descriptors. The
         # blur is rounded to integers first (reference stores its blur as
         # 8U, `src/ORBextractor.cc:1089`), making every patch value an
         # integer <= 255 — exact in bf16, so the cut runs fully in bf16.

@@ -1,9 +1,9 @@
 """Left-right stereo matching: sub-pixel disparity for every left keypoint.
 
-TPU-native rebuild of `Frame::ComputeStereoMatches`
+Vectorized rebuild of `Frame::ComputeStereoMatches`
 (`/root/reference/src/Frame.cc:584-756`). The reference walks a per-row
 candidate table sequentially; here the whole (left x right) candidate
-relation is one dense mask over the MXU Hamming-distance matrix, and the
+relation is one dense mask over the matmul Hamming-distance matrix, and the
 SAD sub-pixel refinement runs for every accepted left keypoint as a single
 batched gather + 11-shift L1 scan:
 

@@ -63,7 +63,7 @@ def point_pose_jacobian(p_cam: jax.Array) -> jax.Array:
 def inv3x3(A: jax.Array) -> jax.Array:
     """Closed-form batched 3x3 inverse (adjugate / det) — avoids the
     LU/SVD custom-call path, which runs as a serialized while-loop for
-    batches of tiny matrices on TPU."""
+    batches of tiny matrices."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -94,7 +94,7 @@ def solve_spd(H: jax.Array, g: jax.Array, lam: jax.Array,
     Cholesky stalls LM around 1e-3 accuracy (the reference runs g2o in
     double, `Thirdparty/g2o`). Jacobi pre-scaling D^-1/2 H D^-1/2 plus a few
     iterative-refinement passes recovers near-f64 step quality while keeping
-    every tensor in f32 for the MXU.
+    every tensor in f32.
     """
     d = H.shape[-1]
     diag = jnp.diagonal(H, axis1=-2, axis2=-1)

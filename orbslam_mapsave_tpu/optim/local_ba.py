@@ -1,6 +1,6 @@
 """Batched Levenberg-Marquardt bundle adjustment with explicit Schur complement.
 
-TPU-native rebuild of g2o's sparse BA stack (`BlockSolver_6_3` +
+Vectorized rebuild of g2o's sparse BA stack (`BlockSolver_6_3` +
 `OptimizationAlgorithmLevenberg`, `Thirdparty/g2o/g2o/core/block_solver.hpp`)
 as used by `Optimizer::LocalBundleAdjustment` (`src/Optimizer.cc:453-779`) and
 `Optimizer::BundleAdjustment` (`src/Optimizer.cc:49-237`):
@@ -8,16 +8,14 @@ as used by `Optimizer::LocalBundleAdjustment` (`src/Optimizer.cc:453-779`) and
 - the solve runs directly on the point-major (L points x O lanes)
   observation table: padded lanes carry zero weight, so their over-compute
   is free vector work — while every index-based alternative (edge
-  compaction + scatter-add) serializes on TPU scatters (measured ~10ms of a
-  14.6ms LM iteration before this layout);
+  compaction + scatter-add) serializes on scatters;
 - landmark blocks Hpp are 3x3 lane-local sums -> inverted in closed form
   (adjugate), batched over all points at once;
-- ALL camera-side reductions are one-hot matmuls on the MXU against the
+- ALL camera-side reductions are one-hot matmuls against the
   (L,O,C) one-hot of obs_cam (computed once per solve);
 - the reduced camera system S = Hcc - W Hpp^-1 W^T is assembled DENSELY via
   per-point camera stacks T[l,c,6,3] = OH^T W — covisible windows are small
-  (<= ~100 cams, SURVEY.md §7.3) so the dense system is exactly what the MXU
-  wants;
+  (<= ~100 cams, SURVEY.md §7.3) so the dense system suits matmul units;
 - Huber IRLS with the reference's deltas sqrt(5.991)/sqrt(7.815)
   (`src/Optimizer.cc:522-523,555,584`);
 - fixed cameras (the observers outside the window, `src/Optimizer.cc:489-504`)
@@ -65,8 +63,8 @@ def _onehot_cam(prob: BAProblem) -> jax.Array:
     so callers compute it once and thread it through the solve. Every
     camera-side reduction AND every camera->lane broadcast becomes a matmul
     against this operator (at HIGHEST precision, exact for 0/1 operands)
-    instead of a scatter/gather: TPU scatters serialize (~µs/row) while the
-    MXU does the same reduction as dense contraction.
+    instead of a scatter/gather: scatters serialize, while a dense
+    contraction does the same reduction in parallel.
     """
     C = prob.cam_pose.shape[0]
     oh = (prob.obs_cam[..., None] == jnp.arange(C, dtype=jnp.int32)) & (
@@ -91,11 +89,10 @@ def _edge_terms_po(cam: projection.Camera, poses: jax.Array, pts: jax.Array,
 
     NOTE on contraction style throughout this module: einsums whose
     contraction axis is tiny (2-3 wide) over a huge (L,O) batch lower to
-    batched-matmul "convolution fusions" costing ~1-2ms each on TPU; the
-    same contraction written as broadcast multiply + sum fuses into one
-    VPU pass. Real matmuls (contraction over C or L) stay einsums — this
-    also covers broadcasting poses to lanes: `poses[obs_cam]` is a ~1ms/call
-    row gather, `einsum(loc,cjk->lojk)` the equivalent MXU matmul.
+    batched-matmul "convolution fusions"; the same contraction written as
+    broadcast multiply + sum fuses into one element-wise pass. Real matmuls (contraction over C or L) stay einsums — this
+    also covers broadcasting poses to lanes: `poses[obs_cam]` is a
+    row gather, `einsum(loc,cjk->lojk)` the equivalent matmul.
     """
     ok_struct = prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None]
     R = jnp.einsum("loc,cjk->lojk", oh, poses[:, :3, :3], precision=lm.HI)
@@ -224,9 +221,8 @@ def _build_and_solve(cam, poses, pts, prob, oh, active, robust, lam):
         S        = Hcc_diag - einsum(lcak, ldbk -> cadb)
 
     replaces the former (C,L,6,3) scatter-adds, which serialized ~E rows per
-    LM iteration on TPU (measured ~10ms of a 14.6ms iteration). All padded
-    lanes carry zero weight, so the 8x lane over-compute is free VPU/MXU
-    work instead of serialized scatter traffic.
+    LM iteration. All padded lanes carry zero weight, so the 8x lane
+    over-compute is parallel work instead of serialized scatter traffic.
     """
     C = prob.cam_pose.shape[0]
     r, Jc, Jp, chi2, ok_s, ok_z, is_st = _edge_terms_po(cam, poses, pts, prob, oh)
@@ -264,7 +260,7 @@ def _build_and_solve(cam, poses, pts, prob, oh, active, robust, lam):
     Hpp_d = Hpp + eye3 * (lam * Hpp_diag + 1e-8)[..., None]
     Hpp_inv = _inv3x3(jnp.where(pt_has_obs[:, None, None], Hpp_d, eye3[None]))
 
-    # --- camera-side reductions: one-hot matmuls on the MXU ---
+    # --- camera-side reductions: one-hot matmuls ---
     L, O = w.shape
     cam_flat = jnp.concatenate(
         [Hcc_lo.reshape(L, O, 36), gc_lo], axis=-1
@@ -299,8 +295,7 @@ def _build_and_solve(cam, poses, pts, prob, oh, active, robust, lam):
     rhs_f = jnp.where(mask, rhs.reshape(-1), 0.0)
     # Cholesky: S is SPD by construction (damped Schur complement with
     # identity rows for fixed cams); `jnp.linalg.solve` lowers to
-    # partial-pivot LU, ~10x slower on TPU at this size (see the same
-    # switch in optim/pose_graph.py)
+    # partial-pivot LU (see the same switch in optim/pose_graph.py)
     chol = jax.scipy.linalg.cho_factor(Sf, lower=True)
     dx_cam = jax.scipy.linalg.cho_solve(chol, rhs_f).reshape(C, 6)
     dx_cam = jnp.where(jnp.isfinite(dx_cam), dx_cam, 0.0)
@@ -345,7 +340,7 @@ def _run_phase(cam, poses, pts, prob, oh, active, robust, n_iters, lam0,
         # mapping feeds are WARM (only the new keyframe + fresh points are
         # off-optimum), where near-converged steps oscillate between tiny
         # accepts and f32-noise rejections — requiring accepted steps would
-        # run the full cap on every converged window (measured +7 ms/KF).
+        # run the full cap on every converged window.
         # The quality-critical full-map GBA uses the stricter accepted-only
         # rule instead (optim/global_ba.gba_iterate).
         gain_small = (cur - new) < rtol * cur

@@ -9,11 +9,11 @@ with weight >= 100 (`:806`); the loop KF is held fixed; 20 LM iterations
 (`:1012-1027`) and map points corrected through their reference KF
 (`:1031-1060`).
 
-TPU design: edges carry a measured relative Sim3; residual r =
+Design: edges carry a measured relative Sim3; residual r =
 sim3_log(S_meas * exp(xi_i) S_i * (exp(xi_j) S_j)^-1) linearized by forward-
 mode autodiff at xi=0 (batched over all edges), normal equations assembled
 densely over (K,7) variables and solved with Cholesky — the essential graph
-of a few hundred KFs fits comfortably as a dense MXU problem.
+of a few hundred KFs fits comfortably as a dense problem.
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def _edge_residual(S_i, S_j, S_meas, xi_i, xi_j):
 def _edge_onehots(prob: PoseGraphProblem, K: int):
     """(E,K) one-hot incidence of each edge's endpoints (f32). Endpoint
     selection and Hessian assembly run as contractions against these —
-    row gathers and (K,K,7,7) scatter-adds both lower pathologically on
-    the TPU runtime (see optim/global_ba._onehot_po)."""
+    row gathers and (K,K,7,7) scatter-adds are avoided (see
+    optim/global_ba._onehot_po)."""
     ids = jnp.arange(K, dtype=jnp.int32)
     oh_i = (prob.edge_i[:, None] == ids).astype(jnp.float32)
     oh_j = (prob.edge_j[:, None] == ids).astype(jnp.float32)
@@ -96,10 +96,8 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20,
     final chi2).
 
     solver="dense": the (7K,7K) normal system assembled by incidence
-    contraction and solved by Cholesky — XLA's TPU `linalg.solve` lowers
-    to partial-pivot LU, which at a few hundred variables runs ~100x
-    slower than the blocked Cholesky (measured: the LU path made the
-    essential graph a multi-second stall per loop event).
+    contraction and solved by Cholesky — `linalg.solve` lowers
+    to partial-pivot LU, which the SPD system does not need.
 
     solver="cg": reference-scale path (K >= ~512). The dense assembly is
     O(E·K²) flops and O(K²·49) memory; the CG form keeps per-edge 7x7

@@ -18,14 +18,15 @@ Reference behavior carried over exactly:
   like the reference (`src/Optimizer.cc:292` nInitialCorrespondences<3 check
   and Tracking's >= 10 gates).
 
-TPU design: all M candidate edges (padded, masked) are processed as one
-batch; the 6x6 normal system is formed by one einsum reduction (MXU) and
-solved in closed form — no graph construction, no sparse structures.
+Design: all M candidate edges (padded, masked) are processed as one batch;
+the 6x6 normal system is formed by one einsum reduction and solved in closed
+form — no graph construction, no sparse structures. On a GPU the whole
+schedule runs as one Pallas (Triton) kernel (`pose_opt_pallas.py`); this
+module's XLA schedule is its reference and the path everywhere else.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import NamedTuple
 
@@ -36,20 +37,11 @@ from ..geometry import projection, se3
 from . import lm
 
 
-# Read ONCE at import: pose_optimization is jitted, so the branch taken at
-# first trace is cached for the process — toggling the env var later would
-# silently do nothing. Set ORBSLAM_TPU_NO_PALLAS=1 before importing to
-# force the XLA path everywhere (A/B debugging).
-_NO_PALLAS = bool(os.environ.get("ORBSLAM_TPU_NO_PALLAS"))
-
-
 def _use_pallas() -> bool:
-    """The fused Pallas LM kernel (pose_opt_pallas.py) replaces the XLA
-    LM chain on TPU (~3.6x); CPU (tests, virtual meshes) keeps the XLA
-    path."""
-    if _NO_PALLAS:
-        return False
-    return jax.default_backend() == "tpu"
+    """The single-kernel LM schedule (pose_opt_pallas.py) replaces the XLA
+    chain on GPU; every other backend (CPU tests, virtual meshes) keeps the
+    XLA path."""
+    return jax.default_backend() == "gpu"
 
 
 class PoseObs(NamedTuple):
@@ -150,9 +142,9 @@ def _lm_rounds(cam, pose0, obs, n_rounds=4, n_iters=10):
 @jax.jit
 def pose_optimization_xla(cam: projection.Camera, pose0_cw: jax.Array,
                           obs: PoseObs):
-    """The pure-XLA schedule — also the vmap-safe variant (the Pallas
-    kernel's grid/block layout does not support a batch dimension; the
-    batched relocalizer maps over candidates with this one)."""
+    """The pure-XLA schedule: the kernel's reference, and the vmap-safe
+    variant (the kernel is one program per call; the batched relocalizer
+    maps over candidates with this one)."""
     pose, inlier = _lm_rounds(cam, pose0_cw, obs)
     # ~40 f32 exp()@pose products leave the rotation slightly off SO(3);
     # uncorrected, the tracker's velocity feedback amplifies that error

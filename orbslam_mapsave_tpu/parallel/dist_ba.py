@@ -1,9 +1,9 @@
 """Distributed bundle adjustment over a jax.sharding.Mesh.
 
 The reference has NO distributed anything (SURVEY.md §2.4) — this is the
-TPU-native scaling layer demanded by BASELINE.json: keyframes/landmarks
+scaling layer demanded by BASELINE.json: keyframes/landmarks
 partitioned over devices, Schur-complement reduction of the camera system
-over collectives, batched LM solve on-chip (§5.7/§5.8).
+over collectives, batched LM solve on device (§5.7/§5.8).
 
 Design (scaling-book recipe: pick a mesh, annotate shardings, let XLA insert
 collectives):

@@ -2,9 +2,9 @@
 
 The reference interleaves tracking and mapping through threads and mutexes
 (`src/Tracking.cc:541-741`, `src/LocalMapping.cc:47-112`); every branch of
-its per-frame state machine is a host decision. On TPU — and especially on
-remote-attached TPU where one host<->device round trip costs tens of
-milliseconds — that structure is the wrong shape: this module compiles the
+its per-frame state machine is a host decision. On an accelerator, where
+every host<->device round trip stalls the device queue, that structure is
+the wrong shape: this module compiles the
 ENTIRE per-frame pipeline into a single XLA program:
 
     motion-model track  ->  (widen / reference-KF fallback via lax.cond)

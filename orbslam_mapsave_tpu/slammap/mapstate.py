@@ -1,6 +1,6 @@
 """Fixed-capacity structure-of-arrays SLAM map state.
 
-TPU-native redesign of the reference's pointer-graph map (SURVEY.md §7.1):
+Array-native redesign of the reference's pointer-graph map (SURVEY.md §7.1):
 `Map` + `KeyFrame` + `MapPoint` (`src/Map.cc`, `src/KeyFrame.cc`,
 `src/MapPoint.cc`) become ONE immutable pytree of padded arrays with validity
 masks. Object identity = array slot; "bad" objects (the reference's
@@ -238,7 +238,7 @@ def add_observations(state: MapState, kf_slot, pt_slots: jax.Array,
     safe_pt = jnp.where(ok, pt_slots, P - 1)
     safe_ft = jnp.where(ok, feat_idx, state.n_features - 1)
     # forward (feat_idx unique per call; dead rows -> OOB, dropped —
-    # duplicate-tolerant scatters serialize on TPU, unique ones parallelize)
+    # duplicate-tolerant scatters serialize, unique ones parallelize)
     cur_fwd = state.kf_kp_point[kf_slot]
     new_fwd = cur_fwd.at[jnp.where(ok, feat_idx, state.n_features)].set(
         pt_slots, mode="drop", unique_indices=True
@@ -386,9 +386,9 @@ def point_obs_count(state: MapState) -> jax.Array:
 def compact_indices(flag: jax.Array, cap: int) -> jax.Array:
     """Indices of nonzero flags compacted into (cap,) ascending, -1 pad.
 
-    Prefix-sum + bounded scatter — O(n) VPU work. The `lax.top_k(flag, cap)`
-    alternative lowers to a full variadic sort of the flag array (measured
-    ~3-5 ms at n=32768 on v5e, every frame); the scan form is ~10x cheaper.
+    Prefix-sum + bounded scatter — O(n) element-wise work. The
+    `lax.top_k(flag, cap)` alternative lowers to a full variadic sort of
+    the flag array, every frame.
     Flags past the first `cap` set bits are dropped."""
     n = flag.shape[0]
     f = flag > 0
@@ -404,7 +404,7 @@ def unique_compact_ids(ids: jax.Array, sentinel: int, cap: int,
                        valid_of: jax.Array | None = None) -> jax.Array:
     """Unique valid ids compacted ASCENDING into (cap,), -1 padded —
     two native sorts, zero scatters (a duplicate-index flag scatter over
-    tens of thousands of rows serializes on TPU; sorts don't). `sentinel`
+    tens of thousands of rows serializes; sorts don't). `sentinel`
     must exceed every valid id (typically the id-space size); overflow
     beyond cap drops the LARGEST ids."""
     ok = ids >= 0
@@ -498,8 +498,8 @@ def merge_points(state: MapState, src: jax.Array, dst: jax.Array,
     # forward pointers: moved -> dst, duplicates -> -1. Dead lanes route to
     # an OUT-OF-BOUNDS row and are dropped; live (kf,feat) pairs are unique
     # (src slots are unique and the forward map is single-valued), so the
-    # scatter is declared unique — a duplicate-tolerant scatter serializes
-    # on TPU, the unique one runs parallel
+    # scatter is declared unique — a duplicate-tolerant scatter serializes,
+    # the unique one runs parallel
     tgt = jnp.where(move, safe_dst[:, None], -1)
     K = state.kf_capacity
     f_kf = jnp.where(s_live, s_kf, K)
@@ -607,7 +607,7 @@ def update_connections(state: MapState, kf_slot) -> MapState:
     obs_kf = state.pt_obs_kf[safe]  # (N,MAX_OBS)
     obs_ok = ok[:, None] & (obs_kf >= 0)
     # shared-point counting as a one-hot reduction (the scatter-add over
-    # N*MAX_OBS duplicate-index rows serializes on TPU; the dense compare +
+    # N*MAX_OBS duplicate-index rows serializes; the dense compare +
     # column sum is one vector pass)
     flat_kf = jnp.where(obs_ok, obs_kf, -1).reshape(-1)
     ohk = flat_kf[:, None] == jnp.arange(K, dtype=jnp.int32)

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 
 from ..config import ViewerConfig
+from ..io import png
 from . import frame_drawer, map_drawer
 
 
@@ -71,9 +72,7 @@ class Viewer:
             n_kfs=self.system.n_keyframes,
             n_points=self.system.n_points,
         )
-        from PIL import Image
-
-        Image.fromarray(img).save(self.out_dir / f"frame_{self._count:06d}.png")
+        png.write(self.out_dir / f"frame_{self._count:06d}.png", img)
         map_drawer.save_map_png(
             self.system.map, str(self.out_dir / f"map_{self._count:06d}.png"),
             current_pose_cw=np.asarray(pose_cw) if pose_cw is not None else None,

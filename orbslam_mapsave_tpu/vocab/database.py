@@ -2,7 +2,7 @@
 
 `KeyFrameDatabase` parity (`src/KeyFrameDatabase.cc`, SURVEY.md §2.1). The
 reference keeps an inverted index word -> list<KeyFrame*> and walks lists
-per query word (`DetectLoopCandidates`, `:151-272`). TPU-native design:
+per query word (`DetectLoopCandidates`, `:151-272`). Dense design:
 BoW vectors live as a dense (K, W) matrix, so
 
 - common-word counts = boolean matmul (query>0) . (bow>0)^T;
@@ -133,8 +133,7 @@ def _sparse_common_and_scores(store: SparseBowStore, q_word: jax.Array,
     row and re-sort — shared words land adjacent, and words are unique
     within each side, so an equal-adjacent pair IS an intersection hit.
     One native (K, M+Mq) sort replaces the old vmapped `searchsorted`
-    (~1.4M serialized binary-search gathers, 33 ms per detection on the
-    TPU runtime — this form is ~1 ms)."""
+    (~1.4M serialized binary-search gathers per detection)."""
     K, M = store.word.shape
     Mq = q_word.shape[0]
     # dead query entries must never match: force their word to the pad

@@ -1,13 +1,17 @@
 """Tests for the YAML config cascade, dataset loaders, trajectory writers."""
 
+from pathlib import Path
+
 import numpy as np
 
 from orbslam_mapsave_tpu import config
 from orbslam_mapsave_tpu.geometry import se3
 from orbslam_mapsave_tpu.io import dataset, synthetic, trajectory
 
-REFERENCE_CAM_YAML = "/root/reference/Examples/ORB_RGBD640x480.yaml"
-REFERENCE_SETTING_YAML = "/root/reference/Examples/Setting.yaml"
+# copies of the reference's settings files, in its own format
+FIXTURES = Path(__file__).parent / "fixtures"
+REFERENCE_CAM_YAML = FIXTURES / "ORB_RGBD640x480.yaml"
+REFERENCE_SETTING_YAML = FIXTURES / "Setting.yaml"
 
 
 def test_load_reference_camera_yaml():

@@ -2,6 +2,7 @@
 the driver entry points."""
 
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -98,7 +99,7 @@ def test_distributed_matches_single_device(rng):
 def test_graft_entry_compiles():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -111,7 +112,7 @@ def test_graft_entry_compiles():
 def test_graft_dryrun_multichip():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)

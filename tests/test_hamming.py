@@ -1,4 +1,4 @@
-"""Tests for MXU Hamming matching vs direct popcount reference."""
+"""Tests for matmul Hamming matching vs direct popcount reference."""
 
 import jax.numpy as jnp
 import numpy as np

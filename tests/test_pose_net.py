@@ -1,4 +1,4 @@
-"""TPU pose backbone: trains on the synthetic skeleton renderer and drives
+"""Pose backbone: trains on the synthetic skeleton renderer and drives
 the full OpDetector chain (backbone -> Kalman -> 3D lift -> mask), the
 pipeline of `/root/reference/src/DetectHumanPose.cpp`."""
 

@@ -1,8 +1,9 @@
 import sys, os
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 import jax, jax.numpy as jnp, numpy as np
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_tpu")
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import bench as bench_mod
 from orbslam_mapsave_tpu import config as config_mod
 from orbslam_mapsave_tpu.pipeline import system as system_mod, local_mapping as lmod

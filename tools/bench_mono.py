@@ -3,22 +3,19 @@ perf story; the reference treats mono as co-equal, `src/Tracking.cc:
 804-880`). Same operating point as the headline RGB-D bench (640x480,
 2000 features, loop closing ON, H/F two-view bootstrap, 7-DoF fix_scale=
 False Sim3 loop), gray channel only. Records fps + Sim3-aligned keyframe
-ATE (mono scale is free) into docs/BENCH_MONO_r5.json."""
+ATE (mono scale is free) into docs/BENCH_MONO.json."""
 import json
 import os
 import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/root/.cache/jax_tpu"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,7 +99,7 @@ def main():
         "kf_ate_sim3_m": round(float(kf_ate), 4),
     }
     print(json.dumps(stats), flush=True)
-    out = Path(__file__).resolve().parents[1] / "docs" / "BENCH_MONO_r5.json"
+    out = Path(__file__).resolve().parents[1] / "docs" / "BENCH_MONO.json"
     out.write_text(json.dumps(stats, indent=1))
 
 

@@ -1,15 +1,17 @@
 """Split the bench workload's wall time into tracking / mapping+loop
 backend / GBA, with warm persistent cache. Run AFTER bench.py (or any run
-that populated /root/.cache/jax_tpu)."""
+that populated the compile cache, utils/compile_cache)."""
 import os
 import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 
 import bench as bench_mod

@@ -3,7 +3,7 @@ tree descent + sparse-row build + loop-detection retrieval at the real
 vocabulary scale (k=10, L=6, 10^6 words — `TemplatedVocabulary.h:
 1471-1476`), vs the bench's 10^4-word trained vocabulary.
 
-Run: python tools/bow_scale_tpu.py
+Run: python tools/bow_scale.py
 """
 import json
 import os
@@ -11,16 +11,14 @@ import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from orbslam_mapsave_tpu.slammap import mapstate as ms
 from orbslam_mapsave_tpu.vocab import database, vocabulary
@@ -102,7 +100,7 @@ def main():
     }
     print(json.dumps(out), flush=True)
     (Path(__file__).resolve().parents[1] / "docs" /
-     "BOW_SCALE_r4.json").write_text(json.dumps(out, indent=1))
+     "BOW_SCALE.json").write_text(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

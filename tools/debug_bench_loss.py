@@ -3,7 +3,6 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -11,6 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, "/root/repo")
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import bench as bench_mod
 from orbslam_mapsave_tpu import config as config_mod
 from orbslam_mapsave_tpu.pipeline import system as system_mod

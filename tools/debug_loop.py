@@ -3,14 +3,15 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.1")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 sys.path.insert(0, "/root/repo")
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 from orbslam_mapsave_tpu import config as config_mod
 from orbslam_mapsave_tpu.io import dataset, synthetic, trajectory
 from orbslam_mapsave_tpu.pipeline import system as system_mod

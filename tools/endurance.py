@@ -1,9 +1,9 @@
 """Long-sequence endurance run (VERDICT r2 item 5): 1200 frames, two+
 revolutions (>= 2 loop closures), K_cap=256 / 64k points with slot
 compaction firing inside the timed region. Records frame-time percentiles,
-loop events, compactions and final keyframe ATE to docs/ENDURANCE_r4.json.
+loop events, compactions and final keyframe ATE to docs/ENDURANCE.json.
 
-Run on the real TPU: python tools/endurance.py
+Run on the GPU: python tools/endurance.py
 """
 import json
 import os
@@ -12,16 +12,14 @@ import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from orbslam_mapsave_tpu import config as config_mod
 from orbslam_mapsave_tpu.io import synthetic, trajectory as traj_io
@@ -156,7 +154,7 @@ def main():
         "ba_escalations": slam.tracker.ba_escalations,
     }
     print(json.dumps(stats), flush=True)
-    out = Path(__file__).resolve().parents[1] / "docs" / "ENDURANCE_r5.json"
+    out = Path(__file__).resolve().parents[1] / "docs" / "ENDURANCE.json"
     out.write_text(json.dumps(stats, indent=1))
 
 

@@ -1,9 +1,11 @@
 """Chained device time of one incremental-GBA LM iteration at bench shapes."""
 import os, sys, time
 from pathlib import Path
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax, jax.numpy as jnp, numpy as np
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import bench as bench_mod
 from orbslam_mapsave_tpu import config as config_mod
 from orbslam_mapsave_tpu.pipeline import system as system_mod

@@ -5,10 +5,12 @@ import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

@@ -4,10 +4,12 @@ import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
@@ -15,8 +17,6 @@ import bench as bench_mod
 from orbslam_mapsave_tpu import config as config_mod
 from orbslam_mapsave_tpu.pipeline import system as system_mod
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_tpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 def main():

@@ -12,7 +12,7 @@ P_cap=262144 points, which routes GBA to the no-one-hot dual-layout PCG
 and the essential graph to the matrix-free CG solver.
 
 Two passes over the sequence: pass 1 warms every program shape (compile),
-pass 2 is timed. Writes docs/SCALE_r5.json.
+pass 2 is timed. Writes docs/SCALE.json.
 """
 import json
 import os
@@ -21,15 +21,13 @@ import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/root/.cache/jax_tpu"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+compile_cache.enable()
+
 if os.environ.get("SCALE_CPU"):  # smoke-test the tool off-chip
     jax.config.update("jax_platforms", "cpu")
 
@@ -217,7 +215,7 @@ def main():
         "caps": {"K": 1536, "P": 262144, "N": 1024},
     }
     print(json.dumps(stats), flush=True)
-    out = Path(__file__).resolve().parents[1] / "docs" / "SCALE_r5.json"
+    out = Path(__file__).resolve().parents[1] / "docs" / "SCALE.json"
     out.write_text(json.dumps(stats, indent=1))
 
 

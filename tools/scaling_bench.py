@@ -8,8 +8,8 @@ CAVEAT recorded with the results: on this box the mesh is
 `xla_force_host_platform_device_count` VIRTUAL CPU devices sharing one
 physical socket, so compute does not speed up with the mesh — the number
 measures sharding/collective OVERHEAD (efficiency ~1/n is expected on CPU;
-on a real TPU slice per-device compute shrinks by 1/n and the collectives
-ride ICI). Usage: python tools/scaling_bench.py [C] [L]
+on real cards per-device compute shrinks by 1/n and the collectives
+ride NVLink). Usage: python tools/scaling_bench.py [C] [L]
 """
 import json
 import os
@@ -20,7 +20,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -28,6 +27,9 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from orbslam_mapsave_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests"))
 
@@ -70,7 +72,7 @@ def main():
         "problem": {"C": C, "L": L, "iters": 4, "cg_iters": 40},
         "hardware": "virtual CPU mesh (xla_force_host_platform_device_count)",
         "note": "virtual devices share one socket: this measures sharding "
-                "overhead, not TPU scaling; see module docstring",
+                "overhead, not device scaling; see module docstring",
         "results": results,
     }))
 
